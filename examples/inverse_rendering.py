@@ -1,7 +1,7 @@
 """Inverse rendering demos: recover scene parameters by gradient descent.
 
 The reference renderer has no gradient story; this is the capability the
-TPU rebuild adds (BASELINE.md). Two stages, both descending the pixel L2
+rebuild adds (BASELINE.md). Two stages, both descending the pixel L2
 loss through the differentiable scan-mode integrator with Adam:
 
 1. material colors — a target is rendered with known albedos, the albedos

@@ -2,13 +2,16 @@
 //
 // The reference implements its runtime in C++ (the render driver, PPM writer
 // and ImageMagick shell-out at RayTracingWeekend/RayTracingWeekend.cpp:162-289);
-// this library is the TPU framework's native equivalent: image codecs
+// this library is the framework's native equivalent: image codecs
 // (PNG/JPEG/PPM via libpng/libjpeg — including the image *decoder* the
 // reference ships earth.jpg for but never wrote, texture.h:73-98) and a
 // multithreaded accumulation framebuffer with checkpoint/resume, exposed
 // through a plain C ABI for ctypes.
 //
-// Build: make -C native   (produces librtw_native.so)
+// Build: make -C native   (produces librtw_native.so). Where the libpng /
+// libjpeg headers are missing, the Makefile builds with -DRTW_NO_CODECS:
+// the PNG/JPEG entry points then fail with an error and rtw_has_codecs()
+// returns 0; PPM and the framebuffer are unaffected.
 
 #include <algorithm>
 #include <atomic>
@@ -21,8 +24,10 @@
 #include <thread>
 #include <vector>
 
+#ifndef RTW_NO_CODECS
 #include <jpeglib.h>
 #include <png.h>
+#endif
 
 extern "C" {
 
@@ -36,6 +41,9 @@ static void set_err(const char* msg) {
 }
 
 const char* rtw_last_error() { return g_err; }
+
+#ifndef RTW_NO_CODECS
+int rtw_has_codecs() { return 1; }
 
 // ---------------------------------------------------------------------------
 // PNG write: 8-bit RGB, rows top-down.
@@ -178,6 +186,20 @@ int rtw_read_jpeg(const char* path, uint8_t* rgb, int w, int h) {
   std::fclose(f);
   return 0;
 }
+
+#else
+int rtw_has_codecs() { return 0; }
+
+static int no_codecs() {
+  set_err("built without libpng/libjpeg (RTW_NO_CODECS)");
+  return -1;
+}
+int rtw_write_png(const char*, const uint8_t*, int, int) { return no_codecs(); }
+int rtw_png_size(const char*, int*, int*) { return no_codecs(); }
+int rtw_read_png(const char*, uint8_t*, int, int) { return no_codecs(); }
+int rtw_jpeg_size(const char*, int*, int*) { return no_codecs(); }
+int rtw_read_jpeg(const char*, uint8_t*, int, int) { return no_codecs(); }
+#endif  // RTW_NO_CODECS
 
 // ---------------------------------------------------------------------------
 // PPM write. P6 (binary, fast) and P3 (text, matches the reference's writer

@@ -1,4 +1,4 @@
-"""Flat SoA scene representation — the TPU-native replacement for the
+"""Flat SoA scene representation — the wavefront replacement for the
 reference's shared_ptr object graph (reference: hittable.h, hittable_list.h,
 sphere.h, material.h, texture.h, Scene/scene.h).
 
@@ -15,11 +15,11 @@ shapes stay static under jit regardless of scene size.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Any, Optional
 
 import jax.numpy as jnp
-from flax import struct
+
+from ..utils.pytree import pytree_dataclass, static_field
 
 # Material type codes (material.h class hierarchy).
 MAT_LAMBERTIAN = 0   # material.h:77-122
@@ -60,7 +60,7 @@ BG_BLACK = 0
 BG_GRADIENT = 1
 
 
-@struct.dataclass
+@pytree_dataclass
 class Spheres:
     """sphere / moving_sphere rows (sphere.h:40-131).
 
@@ -80,7 +80,7 @@ class Spheres:
         return self.radius.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Rects:
     """Axis-aligned rect rows with baked instancing transform.
 
@@ -106,7 +106,7 @@ class Rects:
         return self.k.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Media:
     """constant_medium rows (hittable.h:420-489) with convex analytic
     boundaries (sphere or box), sharing the rect transform encoding."""
@@ -124,7 +124,7 @@ class Media:
         return self.density.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Materials:
     """Type-coded material rows. Colors (albedo / emission) always go through
     the texture table, unifying metal's inline vec3 (material.h:138)."""
@@ -134,7 +134,7 @@ class Materials:
     ref_idx: jnp.ndarray  # (M,) dielectric refractive index
 
 
-@struct.dataclass
+@pytree_dataclass
 class Textures:
     """Type-coded texture rows. Checker children may be any non-checker
     texture (one level of nesting, which covers the reference's usage)."""
@@ -150,16 +150,16 @@ class Textures:
     image_hw: Optional[jnp.ndarray] = None   # (I, 2) int32 actual (ny, nx)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Lights:
     """The MIS lights list (hittable_list used as GetLights(),
     Scene/scene.h:27,35). Rows index into the rect/sphere tables."""
     kind: jnp.ndarray    # (L,) int32 in {LIGHT_RECT, LIGHT_SPHERE}
     index: jnp.ndarray   # (L,) int32 row in the referenced table
-    num: int = struct.field(pytree_node=False, default=0)
+    num: int = static_field(0)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     """Thin-lens look-at camera (camera.h:7-74), precomputed basis."""
     origin: jnp.ndarray            # (3,)
@@ -174,7 +174,7 @@ class Camera:
     time1: jnp.ndarray             # ()
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scene:
     """The full flat scene: geometry + materials + textures + lights + camera.
 
@@ -193,40 +193,39 @@ class Scene:
     # Optional acceleration structure over the sphere table (ops/bvh.py
     # SphereBVH pytree; typed Any to avoid a circular import). Built by
     # SceneBuilder.build(use_bvh=True); closest_hit traverses it instead of
-    # the brute-force table scan when present. Worth it for scenes with
-    # thousands+ of spheres — below that the dense Pallas scan wins.
+    # the brute-force table scan when present (tools/bvh_bench.py times the
+    # two).
     bvh: Optional[Any] = None
-    background: int = struct.field(pytree_node=False, default=BG_GRADIENT)
-    render_type: int = struct.field(pytree_node=False, default=RENDER_SHADED)
+    background: int = static_field(BG_GRADIENT)
+    render_type: int = static_field(RENDER_SHADED)
     # Static capability flags for dead-code elimination under jit.
-    has_moving_spheres: bool = struct.field(pytree_node=False, default=False)
-    has_rect_transforms: bool = struct.field(pytree_node=False, default=False)
-    has_media: bool = struct.field(pytree_node=False, default=False)
-    has_noise_tex: bool = struct.field(pytree_node=False, default=False)
+    has_moving_spheres: bool = static_field(False)
+    has_rect_transforms: bool = static_field(False)
+    has_media: bool = static_field(False)
+    has_noise_tex: bool = static_field(False)
     # Which noise display modes (NOISE_*) the scene's textures actually use;
     # texture evaluation computes only these (marble alone needs 1 turb; all
     # three need 2 turbs + a noise).
-    noise_modes: tuple = struct.field(pytree_node=False, default=())
-    has_image_tex: bool = struct.field(pytree_node=False, default=False)
-    has_checker_tex: bool = struct.field(pytree_node=False, default=False)
+    noise_modes: tuple = static_field(())
+    has_image_tex: bool = static_field(False)
+    has_checker_tex: bool = static_field(False)
     # Material-presence flags: shading evaluates all *present* material
     # branches as masked vector code, so a scene without e.g. dielectrics
     # compiles none of the refraction math (the jit-era analogue of the
     # reference's per-scene compile, RayTracingWeekend.cpp:199-202).
-    has_metal: bool = struct.field(pytree_node=False, default=True)
-    has_dielectric: bool = struct.field(pytree_node=False, default=True)
-    has_isotropic: bool = struct.field(pytree_node=False, default=True)
-    has_lights_mat: bool = struct.field(pytree_node=False, default=True)
+    has_metal: bool = static_field(True)
+    has_dielectric: bool = static_field(True)
+    has_isotropic: bool = static_field(True)
+    has_lights_mat: bool = static_field(True)
     # Diffuse sampling strategy: "mis" is the book-3 final form (cosine pdf
     # mixed with the lights list); the others are the reference's preserved
     # history — the lambertian #if 0 blocks (material.h:83-107):
     # "unit_sphere", "unit_vector", "hemisphere", "onb" — plus the
     # integrator-staging block (RayTracingWeekend.cpp:66-107):
     # "light_only" (hittable_pdf alone, direct light without the mixture).
-    lambertian_strategy: str = struct.field(pytree_node=False, default="mis")
+    lambertian_strategy: str = static_field("mis")
     # True when the packed shading rows (ops/packing.py) cannot express the
     # texture graph (a checker with procedural children) and shading must use
     # the gather-based evaluator. The reference never needs this.
-    needs_legacy_textures: bool = struct.field(pytree_node=False,
-                                               default=False)
-    name: str = struct.field(pytree_node=False, default="")
+    needs_legacy_textures: bool = static_field(False)
+    name: str = static_field("")

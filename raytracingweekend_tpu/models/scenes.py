@@ -210,11 +210,9 @@ def random_balls_large(aspect: float, n: int = 60,
                        use_bvh: bool = False) -> st.Scene:
     """Procedural stress scene beyond the reference's scale: an n x n grid
     of jittered diffuse/metal/glass balls (~n^2 spheres; default 3.6k vs
-    the book-1 scene's ~480). Defaults to the dense table scan /
-    megakernel path: on-chip measurement found NO crossover where the
-    skip-link BVH wins (gather-bound, 300-1000x slower at 512-4k spheres —
-    tools/bvh_bench.py, README table); pass use_bvh=True to exercise the
-    tree anyway."""
+    the book-1 scene's ~480). Defaults to the dense table scan; pass
+    use_bvh=True to traverse the skip-link BVH instead (tools/bvh_bench.py
+    times both)."""
     b = SceneBuilder()
     eng = MinStd()
     half = n // 2
@@ -269,18 +267,21 @@ def checker_spheres(aspect: float) -> st.Scene:
 
 
 def earth_texture_path(image_path: str | None = None) -> str | None:
-    """First decodable earth-texture candidate, or None (tests use this to
-    skip external image-golden gates when no decoder/asset is present)."""
+    """First loadable earth-texture candidate, or None.
+
+    After an explicit `image_path`, the candidates are `assets/earth.jpg`
+    and the raw texels the reference oracle rendered the earth goldens
+    with (tools/reference_oracle/earth.rtwi)."""
     import os
 
     from ..utils import image as image_mod
 
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     candidates = [image_path] if image_path else []
     candidates += [
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.dirname(os.path.abspath(__file__)))), "assets",
-            "earth.jpg"),
-        "/root/reference/RayTracingWeekend/earth.jpg",
+        os.path.join(root, "assets", "earth.jpg"),
+        os.path.join(root, "tools", "reference_oracle", "earth.rtwi"),
     ]
     for cand in candidates:
         if cand and os.path.exists(cand):
@@ -293,8 +294,8 @@ def earth_texture_path(image_path: str | None = None) -> str | None:
 
 
 def _earth_pixels(image_path: str | None = None):
-    """earth.jpg pixels via the native libjpeg decoder, or a procedural
-    stand-in (latitude bands) so image-texture scenes always render."""
+    """Earth texels (earth_texture_path), or a procedural stand-in
+    (latitude bands) so image-texture scenes always render."""
     import numpy as np
 
     from ..utils import image as image_mod
@@ -329,9 +330,7 @@ def earth_rect_scene(aspect: float, image_path: str | None = None) -> st.Scene:
     """Capability scene: the earth image texture on an axis RECT (and on a
     sphere beside it) — exercises image_texture::value with the rect's
     planar uv (hittable.h:160-172 + texture.h:73-98), the case the
-    reference's dead image_texture never reaches. The megakernel fetches
-    the rect texel through the same one-hot atlas path as sphere texels
-    (RT_IMG/RT_IDA/RT_IDB lanes)."""
+    reference's dead image_texture never reaches."""
     b = SceneBuilder()
     tex = b.image(_earth_pixels(image_path))
     b.rect("xy", -3.0, 3.0, -1.5, 1.5, -1.0, b.lambertian(tex))

@@ -5,7 +5,8 @@ shell-out, RayTracingWeekend.cpp:162-289); this module binds the framework's
 native equivalent: libpng/libjpeg image codecs and the multithreaded
 accumulation framebuffer with checkpoint/resume. Everything degrades
 gracefully — `available()` is False when the shared library hasn't been
-built (`make -C native`) and pure-Python fallbacks in utils.image take over.
+built (`make -C native`), `has_codecs()` is False when it was built without
+libpng/libjpeg, and pure-Python fallbacks in utils.image take over.
 """
 from __future__ import annotations
 
@@ -47,6 +48,7 @@ def _load() -> Optional[C.CDLL]:
     u8p = C.POINTER(C.c_ubyte)
     f32p = C.POINTER(C.c_float)
     lib.rtw_last_error.restype = C.c_char_p
+    lib.rtw_has_codecs.restype = C.c_int
     lib.rtw_write_png.argtypes = [C.c_char_p, u8p, C.c_int, C.c_int]
     lib.rtw_png_size.argtypes = [C.c_char_p, C.POINTER(C.c_int),
                                  C.POINTER(C.c_int)]
@@ -78,6 +80,12 @@ def _load() -> Optional[C.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def has_codecs() -> bool:
+    """True when the library was built with libpng/libjpeg (see Makefile)."""
+    lib = _load()
+    return lib is not None and bool(lib.rtw_has_codecs())
 
 
 def _check(rc: int, what: str) -> None:

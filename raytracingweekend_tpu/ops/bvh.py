@@ -5,7 +5,7 @@ instantiated by any scene and contains real bugs: the build sorts
 ``[&l[0], &l[n-1])`` excluding the last element (hittable.h:66), assigns
 `left` twice for n > 2 leaving `right` dangling (hittable.h:82-83), and
 `hit()` tests `left` for both children (hittable.h:102-103). This module is
-the working TPU-native replacement (SURVEY.md §7 step 6):
+the working replacement (SURVEY.md §7 step 6):
 
 - build on host with numpy: top-down median split on the widest centroid
   axis over motion-expanded sphere AABBs (the union box of
@@ -18,25 +18,24 @@ the working TPU-native replacement (SURVEY.md §7 step 6):
   each through its own cursor, gathering node boxes from a table that is
   tiny next to HBM.
 
-Intended for large scenes: the brute-force paths (geometry.hit_spheres /
-the Pallas kernel) win below a few thousand spheres, where O(N*S) vector
-work beats gather-bound tree stepping on the VPU.
+Intended for large scenes: opt-in (SceneBuilder.build(use_bvh=True));
+tools/bvh_bench.py times it against the dense geometry.hit_spheres scan.
 """
 from __future__ import annotations
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..models import scene_types as st
+from ..utils.pytree import pytree_dataclass
 from . import linalg
 from .geometry import BIG
 
 LEAF_SIZE = 4  # max spheres per leaf; static unroll bound in traversal
 
 
-@struct.dataclass
+@pytree_dataclass
 class SphereBVH:
     """Flattened skip-link BVH. M nodes in DFS pre-order."""
     bbox_min: jnp.ndarray  # (M, 3)

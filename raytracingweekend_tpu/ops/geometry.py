@@ -1,6 +1,6 @@
 """Wavefront closest-hit intersection over flat SoA primitive tables.
 
-TPU-native replacement for the reference's virtual-dispatch linear scan
+Replaces the reference's virtual-dispatch linear scan
 (reference: hittable_list.h:11-37 and the per-class hit() methods in
 sphere.h:46-81, hittable.h:149-267,299-404,430-479). Instead of one ray
 chasing pointers through an object graph, a whole wavefront of N rays is
@@ -8,7 +8,8 @@ intersected against each primitive table at once:
 
 - spheres: a lax.scan over fixed-size sphere blocks with a running
   (best_t, best_idx) carry, so peak memory is O(N x block) regardless of
-  scene size and the quadratic-setup arithmetic maps onto fused VPU/MXU ops;
+  scene size and the quadratic-setup arithmetic fuses into the min/argmin
+  reduction of each block;
 - rects: a dense (N x R) test with the translate/rotate_y instancing baked
   into per-rect ray transforms (the reference's move-the-ray trick,
   hittable.h:294, vectorized);
@@ -23,32 +24,14 @@ deliberately not reproduced.
 """
 from __future__ import annotations
 
-import os
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..models import scene_types as st
 from . import linalg, packing, sampling
+from ..utils.pytree import pytree_dataclass
 
-
-def use_pallas() -> bool:
-    """True when the Pallas TPU intersection kernel should be used.
-
-    Decided by backend (CPU test meshes and the multichip dry run take the
-    pure-XLA path); RTW_DISABLE_PALLAS=1 forces it off for A/B timing;
-    RTW_FORCE_PALLAS_INTERPRET=1 forces it ON in interpret mode so CPU tests
-    can exercise the kernel + its custom VJP.
-    """
-    if os.environ.get("RTW_DISABLE_PALLAS"):
-        return False
-    if os.environ.get("RTW_FORCE_PALLAS_INTERPRET"):
-        return True
-    try:
-        return jax.default_backend() not in ("cpu", "gpu")
-    except Exception:  # pragma: no cover - backend probing never raises today
-        return False
 
 # Large finite sentinel: plays the role of std::numeric_limits<double>::max()
 # at RayTracingWeekend.cpp:52 while staying float32-safe in arithmetic.
@@ -62,7 +45,7 @@ KIND_RECT = 1
 KIND_MEDIUM = 2
 
 
-@struct.dataclass
+@pytree_dataclass
 class Hit:
     """Wavefront hit_record (hittable.h:16-29), SoA over N rays.
 
@@ -134,7 +117,7 @@ def _sphere_candidate_t(o, d, time, t_min, spheres: st.Spheres, moving: bool):
 
 def _hit_spheres_xla(o, d, time, t_min, spheres: st.Spheres, moving: bool,
                      block: int = 256):
-    """Pure-XLA closest sphere hit (CPU path / pallas fallback)."""
+    """Closest sphere hit over 256-sphere blocks (see module docstring)."""
     S = spheres.count()
     N = o.shape[0]
     if S <= block:
@@ -171,91 +154,16 @@ def _hit_spheres_xla(o, d, time, t_min, spheres: st.Spheres, moving: bool,
     return best_t, best_i
 
 
-def _winner_replay_t(o, d, time, spheres: st.Spheres, bi, moving: bool,
-                     t_min: float):
-    """Differentiable per-ray recompute of the WINNING sphere's hit t.
-
-    The Pallas kernel finds (best_t, best_i) fast but has no autodiff rule;
-    given the (locally constant) winner index, best_t is just the one-sphere
-    quadratic of sphere.h:46-81 — an O(N) replay instead of an O(N*S)
-    backward sweep."""
-    c0 = spheres.center0[bi]
-    c = c0
-    if moving:
-        dcv = (spheres.center1 - spheres.center0)[bi]
-        t0 = spheres.time0[bi]
-        dt = (spheres.time1 - spheres.time0)[bi]
-        inv_dt = jnp.where(dt != 0, 1.0 / jnp.where(dt != 0, dt, 1.0), 0.0)
-        c = c0 + ((time - t0) * inv_dt)[:, None] * dcv
-    oc = o - c
-    a = jnp.sum(d * d, axis=-1)
-    b = jnp.sum(oc * d, axis=-1)
-    cc = jnp.sum(oc * oc, axis=-1) - spheres.radius[bi] ** 2
-    disc = b * b - a * cc
-    sq = linalg.safe_sqrt(disc)
-    t_near = (-b - sq) / a
-    t_far = (-b + sq) / a
-    return jnp.where(t_near > t_min, t_near, t_far)
-
-
-from functools import partial as _partial
-
-
-@_partial(jax.custom_vjp, nondiff_argnums=(3, 4))
-def _hit_spheres_pallas(o, d, time, moving: bool, t_min: float,
-                        spheres: st.Spheres):
-    from . import pallas_intersect as pi
-    N = o.shape[0]
-    tile = 512
-    n_pad = (-N) % tile
-    o_p = jnp.pad(o, ((0, n_pad), (0, 0)))
-    d_p = jnp.pad(d, ((0, n_pad), (0, 0)), constant_values=1.0)
-    t_p = jnp.pad(time, (0, n_pad))
-    rays = pi.pack_rays(o_p, d_p, t_p)
-    table = pi.pack_spheres(spheres)
-    interp = bool(os.environ.get("RTW_FORCE_PALLAS_INTERPRET"))
-    bt, bi = pi.hit_spheres_pallas(rays, table, moving=moving,
-                                   t_min=float(t_min), tile=tile,
-                                   interpret=interp)
-    return bt[:N], bi[:N]
-
-
-def _hit_spheres_pallas_fwd(o, d, time, moving, t_min, spheres):
-    bt, bi = _hit_spheres_pallas(o, d, time, moving, t_min, spheres)
-    return (bt, bi), (o, d, time, spheres, bt, bi)
-
-
-def _hit_spheres_pallas_bwd(moving, t_min, res, g):
-    o, d, time, spheres, bt, bi = res
-    g_t = g[0] * (bt < BIG)  # misses carry the constant BIG: zero tangent
-    _, vjp = jax.vjp(
-        lambda o_, d_, tm_, sph_: _winner_replay_t(o_, d_, tm_, sph_,
-                                                   jnp.maximum(bi, 0),
-                                                   moving, t_min),
-        o, d, time, spheres)
-    return vjp(g_t)
-
-
-_hit_spheres_pallas.defvjp(_hit_spheres_pallas_fwd, _hit_spheres_pallas_bwd)
-
-
 def hit_spheres(o, d, time, t_min, spheres: st.Spheres, moving: bool,
                 block: int = 256):
     """Closest sphere hit: (best_t (N,), best_idx (N,) int32).
 
-    On TPU this dispatches to the Pallas VMEM-resident kernel
-    (pallas_intersect.py), wrapped in a custom VJP whose backward replays
-    only the winning sphere's quadratic (so jax.grad w.r.t. sphere
-    centers/radii works on the TPU backend too); elsewhere to the fused XLA
-    formulation. Both return BIG / -1 (well, argmin row 0) for misses —
-    callers test ``best_t < BIG``.
+    Misses return best_t = BIG (callers test ``best_t < BIG``).
     """
     N = o.shape[0]
     S = spheres.count()
     if S == 0:
         return jnp.full((N,), BIG), jnp.full((N,), -1, jnp.int32)
-    if use_pallas():
-        return _hit_spheres_pallas(o, d, time, moving, float(t_min), spheres)
     return _hit_spheres_xla(o, d, time, t_min, spheres, moving, block)
 
 
@@ -291,11 +199,20 @@ def _select_axis(axis, x, y, z):
     return a, b, n
 
 
+def plane_t(k, o_n, d_n):
+    """Ray parameter where o_n + t*d_n == k; -1 (behind every t_min) for
+    rays parallel to the plane. The double-where keeps both autodiff passes
+    finite: a bare (k - o_n) / d_n puts 0/0 into the cotangents of lanes
+    that the caller masks out."""
+    nz = d_n != 0
+    return jnp.where(nz, (k - o_n) / jnp.where(nz, d_n, 1.0), -1.0)
+
+
 def hit_rects(o, d, t_min, rects: st.Rects, transforms: bool):
     """Closest axis-rect hit: (best_t (N,), best_idx (N,) int32).
 
     R is small in every reference scene (<= 16), so a dense (N x R) test is
-    both simplest and fastest on the VPU.
+    the simplest formulation.
     """
     N = o.shape[0]
     R = rects.count()
@@ -306,7 +223,7 @@ def hit_rects(o, d, t_min, rects: st.Rects, transforms: bool):
     axis = rects.axis[None, :]
     o_a, o_b, o_n = _select_axis(axis, ox, oy, oz)
     d_a, d_b, d_n = _select_axis(axis, dx, dy, dz)
-    t = (rects.k[None, :] - o_n) / d_n                      # (N, R)
+    t = plane_t(rects.k[None, :], o_n, d_n)                 # (N, R)
     pa = o_a + t * d_a
     pb = o_b + t * d_b
     valid = (
@@ -433,23 +350,21 @@ def closest_hit(key, o, d, time, scene: st.Scene, t_min=T_MIN,
     p_world = o + best_t[:, None] * d
 
     # --- packed attribute resolution ---
-    # ONE row gather per table instead of ~15 small-table gathers (each
-    # costs milliseconds at wavefront sizes on TPU); see ops/packing.py.
+    # ONE row gather per table instead of ~15 small-table gathers; see
+    # ops/packing.py.
     base_r = scene.spheres.count()
     base_v = base_r + scene.rects.count()
     prim = jnp.where(kind == KIND_SPHERE, idx,
                      jnp.where(kind == KIND_RECT, idx + base_r,
                                idx + base_v))
     # Miss rays land at idx + base_v, which is one past the end when the
-    # scene has no media rows; clamp so both lookup backends (gather clamps,
-    # one-hot returns zeros) read the same in-range row. Their lanes are
-    # masked downstream, but masked forward values still produce NaN
-    # *cotangents* (inf * 0 in the masked branches), so detach miss rows
-    # from the tables in the backward pass.
+    # scene has no media rows; clamp so they read an in-range row. Their
+    # lanes are masked downstream, but masked forward values still produce
+    # NaN *cotangents* (inf * 0 in the masked branches), so detach miss
+    # rows from the tables in the backward pass.
     prim = jnp.clip(prim, 0, base_v + scene.media.count() - 1)
-    from .lookup import table_lookup
-    geo = table_lookup(packing.pack_geometry(scene), prim)    # (N, 16)
-    sattr = table_lookup(packing.pack_shading(scene), prim)   # (N, 16)
+    geo = packing.pack_geometry(scene)[prim]                  # (N, 16)
+    sattr = packing.pack_shading(scene)[prim]                 # (N, 16)
     geo = jnp.where(hit[:, None], geo, jax.lax.stop_gradient(geo))
     sattr = jnp.where(hit[:, None], sattr, jax.lax.stop_gradient(sattr))
     mat = jnp.where(hit, geo[:, packing.G_MAT].astype(jnp.int32), 0)

@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator.
 
-TPU-native reformulation of the recursive color() integrator
+Iterative reformulation of the recursive color() integrator
 (reference: RayTracingWeekend.cpp:45-160). The depth-100 recursion becomes an
 iterative bounce loop over a wavefront of N rays carrying
 (origin, direction, throughput, radiance, active):
@@ -12,9 +12,11 @@ iterative bounce loop over a wavefront of N rays carrying
 which telescopes to exactly the reference's
 ``emitted + atten * s_pdf * color(next) / pdf_val`` recursion.
 
-Two loop modes:
-- "while": lax.while_loop that stops as soon as every ray has terminated —
-  the fast path for forward rendering (most rays die in a few bounces);
+Loop modes:
+- "regen" (trace_regenerative): persistent slots that pull fresh camera
+  rays as paths end — the default forward path;
+- "tiled" (trace_tiled): per-pixel slots with dense accumulation;
+- "while": lockstep lax.while_loop that stops once every ray has ended;
 - "scan": fixed-depth lax.scan — reverse-mode differentiable, used by the
   inverse-rendering path.
 """
@@ -142,7 +144,8 @@ def trace_regenerative(key, scene: st.Scene, nx: int, ny: int, spp: int,
     immediately pulls the next (pixel, sample) from a global counter when its
     path terminates (the wavefront formulation of Laine et al. 2013, built
     from lax.while_loop + masked scatter-adds instead of GPU queues), so
-    utilization stays ~100% until the tail of the whole frame.
+    slots stay busy until the launch's supply of new rays runs out. The
+    tail after that still runs at full width (PERF.md measures it).
 
     Sampling matches main()'s jittered box filter (cpp:227-228): ray k of
     nx*ny*spp covers pixel k % n_pix at sample k // n_pix. RNG is keyed per
@@ -245,34 +248,14 @@ def _block_linear_order(nx: int, ny: int, block: int = 32):
     return order, inverse
 
 
-def _tile_width(n_slots: int, k: int) -> int:
-    """Pixels per tile for the tiled integrator.
-
-    Empirically the EXACT tile width 1<<15 faults the TPU worker
-    (device-level crash, not a Python error) while 1<<14 and 1<<16 are
-    fine and CPU is correct for all three — a Mosaic/XLA shape-specific
-    miscompile we sidestep rather than hit. Minimized repro:
-    tools/mosaic_repros/repro_tile_32768_fault.py (gated on
-    RTW_DISABLE_TILE_GUARD so nothing can trip it by accident);
-    regression pin: tests/test_integrator_guards.py.
-    """
-    import os
-
-    T = max(n_slots // k, 256)
-    if T == (1 << 15) and not os.environ.get("RTW_DISABLE_TILE_GUARD"):
-        T = 1 << 16
-    return T
-
-
 def trace_tiled(key, scene: st.Scene, nx: int, ny: int, spp: int,
                 max_depth: int = 100, n_slots: int = 1 << 19,
                 spp_per_slot: int | None = None,
                 rr_depth: int | None = 4):
-    """Tiled per-pixel-slot wavefront integrator — the scatter-free fast path.
+    """Tiled per-pixel-slot wavefront integrator — the scatter-free variant.
 
-    Random-index scatter-add costs ~60 ms per iteration at wavefront widths
-    on TPU (it serializes), which made deposits half of trace_regenerative's
-    runtime. Here every slot is bound to ONE pixel for a whole launch:
+    trace_regenerative deposits finished paths with a random-index
+    scatter-add. Here every slot is bound to ONE pixel for a whole launch:
     a tile of T = n_slots / k pixels runs k sample-parallel slots per pixel,
     each slot serially retracing its pixel for `spp_per_slot` samples. All
     accumulation is dense:
@@ -300,7 +283,8 @@ def trace_tiled(key, scene: st.Scene, nx: int, ny: int, spp: int,
     while spp % spp_per_slot:
         spp_per_slot -= 1
     k = spp // spp_per_slot                 # sample-parallel slots per pixel
-    T = _tile_width(n_slots, k)             # pixels per tile
+    # pixels per tile, at most the image (rounded up to 256)
+    T = min(max(n_slots // k, 256), -(-n_pix // 256) * 256)
     slots = T * k
     n_tiles = -(-n_pix // T)
     n_pad = n_tiles * T

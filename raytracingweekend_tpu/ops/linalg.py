@@ -1,9 +1,9 @@
 """3-vector math over arrays of shape (..., 3).
 
-TPU-native reformulation of the reference's scalar vec3/onb layer
+Vectorized reformulation of the reference's scalar vec3/onb layer
 (reference: RayTracingWeekend/vec3.h, onb.h, material.h:10-49). Everything is
 batched: a "vec3" is the trailing axis of a jnp array, so the whole module is
-pure elementwise VPU work that XLA fuses into surrounding kernels.
+pure elementwise work that XLA fuses into surrounding kernels.
 """
 from __future__ import annotations
 

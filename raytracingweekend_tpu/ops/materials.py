@@ -14,9 +14,9 @@ import math
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ..models import scene_types as st
+from ..utils.pytree import pytree_dataclass
 from . import linalg, packing, pdfs, sampling, textures
 from .geometry import Hit
 
@@ -65,7 +65,7 @@ def _eval_texture_packed(sh, u, v, p, scene: st.Scene):
     return out
 
 
-@struct.dataclass
+@pytree_dataclass
 class ShadeResult:
     direction: jnp.ndarray  # (N, 3) next ray direction (may be unnormalized)
     weight: jnp.ndarray     # (N, 3) throughput multiplier for this vertex

@@ -1,12 +1,12 @@
 """Vectorized Perlin noise with deterministic lookup tables.
 
-TPU-native rebuild of the reference's lazily-initialized static-table Perlin
+Vectorized rebuild of the reference's lazily-initialized static-table Perlin
 implementation (reference: RayTracingWeekend/noise.h, noise.cpp). The 256-entry
 tables are generated eagerly and deterministically with the same LCG family the
 reference uses (std::minstd_rand, default seed 1 — noise.h:166-213), so the
 textures are reproducible run-to-run without global mutable state. Evaluation
 is fully batched: each of the 8 lattice corners is a static unrolled gather,
-so a million-ray wavefront evaluates noise as 8 vector gathers + fused VPU math.
+so a million-ray wavefront evaluates noise as 8 vector gathers + fused math.
 
 Both interpolation modes of the reference enum (noise.h:100-150) and both
 smoothstep variants (noise.h:9-20) are exposed; defaults match the active
@@ -66,16 +66,8 @@ def _smooth(x, smoother: bool):
     return x * x * (3.0 - 2.0 * x)
 
 
-# On TPU, gathers run at ~10M elements/s — a 56-taps-per-point Perlin eval
-# over a wavefront costs seconds. ops/lookup.table_lookup routes the
-# 256-entry table reads through chunked one-hot matmuls on the MXU (~50x),
-# at Precision.HIGHEST so the float tables (ranfloat, unit gradients) keep
-# full f32 accuracy instead of single-pass-bf16's ~1e-3 rounding.
-from .lookup import table_lookup as _lookup
-
-
 # Corner offsets (8, 1): unrolled as one batched axis so the whole lattice
-# lookup is FOUR lookup ops (3 perm tables + 1 value table) instead of 32.
+# lookup is FOUR gathers (3 perm tables + 1 value table) instead of 32.
 _DI = jnp.array([0, 0, 0, 0, 1, 1, 1, 1], jnp.int32)[:, None]
 _DJ = jnp.array([0, 0, 1, 1, 0, 0, 1, 1], jnp.int32)[:, None]
 _DK = jnp.array([0, 1, 0, 1, 0, 1, 0, 1], jnp.int32)[:, None]
@@ -110,9 +102,9 @@ def noise(p, mode: str = "perlin", smoother: bool = False):
     vv = _smooth(v, smoother)[None]
     ww = _smooth(w, smoother)[None]
 
-    idx = (_lookup(perm_x, (i[None] + _DI) & 255)
-           ^ _lookup(perm_y, (j[None] + _DJ) & 255)
-           ^ _lookup(perm_z, (k[None] + _DK) & 255))   # (8, N)
+    idx = (perm_x[(i[None] + _DI) & 255]
+           ^ perm_y[(j[None] + _DJ) & 255]
+           ^ perm_z[(k[None] + _DK) & 255])            # (8, N)
     di = _DI.astype(p.dtype)
     dj = _DJ.astype(p.dtype)
     dk = _DK.astype(p.dtype)
@@ -120,9 +112,9 @@ def noise(p, mode: str = "perlin", smoother: bool = False):
            * (dj * vv + (1 - dj) * (1.0 - vv))
            * (dk * ww + (1 - dk) * (1.0 - ww)))  # (8, N)
     if mode == "trilinear":
-        accum = jnp.sum(wgt * _lookup(ranfloat, idx), axis=0)
+        accum = jnp.sum(wgt * ranfloat[idx], axis=0)
     else:  # perlin: dot(gradient, corner-relative offset)
-        g = _lookup(ranvec, idx)               # (8, N, 3)
+        g = ranvec[idx]                         # (8, N, 3)
         rel = jnp.stack([u[None] - di, v[None] - dj, w[None] - dk], axis=-1)
         accum = jnp.sum(wgt * jnp.sum(g * rel, axis=-1), axis=0)
     return accum.reshape(shape)

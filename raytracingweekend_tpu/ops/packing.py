@@ -1,7 +1,7 @@
 """Packed per-primitive attribute rows for gather-light shading.
 
-On TPU, each (N,)-indexed gather from a small table costs milliseconds at
-wavefront sizes — and hit resolution + shading naively needs ~15 of them
+Hit resolution + shading naively needs ~15 (N,)-indexed gathers from small
+tables
 (sphere center/radius, rect transform, material type/fuzz/ref_idx, texture
 type/colors/scale ...). This module flattens everything a ray needs after
 intersection into TWO unified rows per primitive:

@@ -55,7 +55,7 @@ def _rect_light_pdf(o, v, scene: st.Scene):
 
     # Move probe ray into each light rect's object space (component-wise —
     # no (N, L, 3) stacks, no gathers; see geometry._select_axis).
-    from .geometry import _select_axis
+    from .geometry import _select_axis, plane_t
 
     off = r.offset[ri]            # (L, 3)
     c, s = r.cos_t[ri][None], r.sin_t[ri][None]
@@ -71,7 +71,7 @@ def _rect_light_pdf(o, v, scene: st.Scene):
     axis = r.axis[ri][None]                                # (1, L)
     o_a, o_b, o_n = _select_axis(axis, ox, shy, oz)
     d_a, d_b, d_n = _select_axis(axis, dx, dy, dz)
-    t = (r.k[ri][None] - o_n) / d_n
+    t = plane_t(r.k[ri][None], o_n, d_n)
     pa = o_a + t * d_a
     pb = o_b + t * d_b
     hit = ((t > _EPS_T)
@@ -80,12 +80,17 @@ def _rect_light_pdf(o, v, scene: st.Scene):
 
     area = ((r.a1[ri] - r.a0[ri]) * (r.b1[ri] - r.b0[ri]))[None]
     v_len2 = linalg.length_squared(v)[:, None]
+    # Missed probes are masked out below; the double-wheres keep their
+    # (discarded) t, cosine and quotient finite in both autodiff passes,
+    # or a masked cotangent becomes 0 * inf = NaN.
+    t = jnp.where(hit, t, 0.0)
     dist2 = t * t * v_len2
     # cosine against the object-space normal; |dot| is rotation-invariant
-    # so the transform does not change it (hittable.h:219).
-    cosine = jnp.abs(d_n) / jnp.sqrt(v_len2)
-    pdf = dist2 / jnp.maximum(cosine * area, 1e-20)
-    return jnp.where(hit, pdf, 0.0)
+    # so the transform does not change it (hittable.h:219). Hit probes have
+    # d_n != 0, hence v_len2 > 0.
+    cosine = jnp.abs(d_n) / jnp.sqrt(jnp.where(hit, v_len2, 1.0))
+    denom = jnp.where(hit, jnp.maximum(cosine * area, 1e-20), 1.0)
+    return jnp.where(hit, dist2 / denom, 0.0)
 
 
 def _sphere_light_pdf(o, v, scene: st.Scene):
@@ -109,10 +114,15 @@ def _sphere_light_pdf(o, v, scene: st.Scene):
     hit = (disc > 0) & (t > _EPS_T)
 
     dist2 = jnp.sum(oc * oc, axis=-1)
-    ctm = linalg.safe_sqrt(1.0 - (rad * rad)[None] / dist2)
+    # Rows that are not sphere lights (rect lights read sphere row 0) and
+    # probes from the centre itself are masked out; the double-where keeps
+    # their r^2/dist2 finite so the masked cotangents stay 0, not 0*inf.
+    valid = (lights.kind == st.LIGHT_SPHERE)[None] & (dist2 > 0)
+    ctm = linalg.safe_sqrt(1.0 - (rad * rad)[None]
+                           / jnp.where(valid, dist2, 1.0))
     solid_angle = 2.0 * math.pi * (1.0 - ctm)
     pdf = 1.0 / jnp.maximum(solid_angle, 1e-20)
-    return jnp.where(hit, pdf, 0.0)
+    return jnp.where(hit & valid, pdf, 0.0)
 
 
 def lights_pdf_value(o, v, scene: st.Scene):
@@ -173,13 +183,11 @@ def lights_sample(key, o, scene: st.Scene):
     pick a uniform light, then sample its direction-generating rule.
     Returns (N, 3) — unnormalized for rect lights (hittable.h:224-228),
     unit-cone directions for sphere lights (sphere.h:101-108)."""
-    from .lookup import table_lookup
-
     lights = scene.lights
     N = o.shape[0]
     k_pick, k_rect, k_sph = jax.random.split(key, 3)
     pick = sampling.random_int(k_pick, (N,), 0, lights.num - 1)
-    row = table_lookup(_light_rows(scene), pick)            # (N, 16)
+    row = _light_rows(scene)[pick]                          # (N, 16)
     kind = row[:, _L_KIND]
 
     # Rect sample: uniform point on the rect, mapped through its transform.

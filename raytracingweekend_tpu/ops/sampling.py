@@ -1,6 +1,6 @@
 """Keyed, vectorized Monte Carlo samplers.
 
-TPU-native replacement for the reference's static-`std::minstd_rand` free
+Replaces the reference's static-`std::minstd_rand` free
 functions (reference: RayTracingWeekend/utility.h:14-82, camera.h:61-69).
 Every sampler is a pure function of a threefry key and a batch shape, so the
 reference's documented thread-safety race (RayTracingWeekend.cpp:188-189,213)
@@ -9,7 +9,7 @@ mesh or sharding.
 
 Rejection loops (unit sphere / unit disk) are replaced by exact closed-form
 equivalents — identical distributions, no data-dependent control flow, which
-is what XLA/TPU needs. SURVEY.md §7 sanctions matching the RNG stream
+is what a vectorized XLA program needs. SURVEY.md §7 sanctions matching the RNG stream
 statistically rather than bitwise.
 """
 from __future__ import annotations

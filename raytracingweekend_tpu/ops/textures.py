@@ -1,6 +1,6 @@
 """Wavefront texture evaluation over the type-coded texture table.
 
-TPU-native replacement for the reference's virtual texture::value dispatch
+Vectorized replacement for the reference's virtual texture::value dispatch
 (reference: texture.h:10-98). All rays evaluate all *present* texture types as
 masked vector code and select by type code; scene-level static flags compile
 out types a scene doesn't use. Checker children are resolved by one extra

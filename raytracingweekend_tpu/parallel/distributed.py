@@ -1,21 +1,19 @@
 """Multi-host distributed rendering (SURVEY.md §2.3, §5).
 
 The reference has no networking of any kind (single process, PPL threads).
-The TPU-native equivalent: `jax.distributed.initialize` to form one global
-runtime across hosts, a global (dp, sp) mesh over ALL devices so the
-`shard_map` renderer in mesh.py runs unchanged (XLA routes intra-slice
-collectives over ICI and cross-slice over DCN), and host-local tile
-assembly for image output.
+Here: `jax.distributed.initialize` forms one global runtime across
+processes, a global (dp, sp) mesh spans ALL devices so the `shard_map`
+renderer in mesh.py runs unchanged, and the image is gathered to every
+host for output.
 
 The only cross-chip traffic forward rendering needs is the spp-shard psum
-of pixel accumulators (mesh.py:89); inverse rendering adds the scene-
-parameter gradient psum (__graft_entry__.dryrun_multichip shows the full
-training step). Ray tracing has no neighbor exchange — rays don't interact —
+of pixel accumulators ; inverse rendering adds the scene-parameter
+gradient psum (mesh.sharded_value_and_grad). Ray tracing has no neighbor exchange — rays don't interact —
 so there is no ring/halo communication to schedule.
 
-This module is exercised in CI only on a forced-host-platform virtual mesh
-(tests/test_sharding.py); on real multi-host slices the same code paths run
-under `jax.distributed`.
+The tests run it on a virtual CPU mesh (tests/test_sharding.py) and across
+two CPU processes (tests/test_distributed.py); `chip_smoke.py --multi-gpu`
+runs it over the local GPUs of one process.
 """
 from __future__ import annotations
 
@@ -34,8 +32,8 @@ __all__ = ["initialize", "global_mesh", "render_distributed"]
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Join the global JAX runtime. On TPU pods all arguments are discovered
-    from the environment; pass them explicitly elsewhere. Idempotent."""
+    """Join the global JAX runtime. Pass the coordinator address
+    (`host:port`), process count and this process's id. Idempotent."""
     try:
         jax.distributed.initialize(coordinator_address=coordinator_address,
                                    num_processes=num_processes,

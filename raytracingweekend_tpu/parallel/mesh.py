@@ -2,13 +2,13 @@
 
 The reference's only parallelism is shared-memory PPL parallel_for over
 rows x cols x samples with racy static RNGs (reference:
-RayTracingWeekend.cpp:186-193,213-219; SURVEY.md §2.3). The TPU-native
+RayTracingWeekend.cpp:186-193,213-219; SURVEY.md §2.3). The device-mesh
 equivalents here:
 
 - mesh axis "dp": image row-tiles, embarrassingly parallel, output stays
   sharded (device-local canvas tiles);
 - mesh axis "sp": samples-per-pixel shards, combined with one psum over the
-  accumulator — the only cross-chip traffic in forward rendering;
+  accumulator — the only cross-device traffic in forward rendering;
 - gradient all-reduce for inverse rendering is the same psum applied to
   scene-parameter grads.
 
@@ -28,9 +28,9 @@ from jax.sharding import Mesh, PartitionSpec as P
 from ..models import scene_types as st
 from ..ops import camera as camera_mod
 from ..ops import sampling
-from ..ops.integrator import trace
+from ..ops.integrator import trace, trace_with_stats
 
-__all__ = ["make_mesh", "render_sharded", "render_sharded_mega"]
+__all__ = ["make_mesh", "render_sharded", "sharded_value_and_grad"]
 
 
 def make_mesh(dp: int = 1, sp: int = 1, devices=None) -> Mesh:
@@ -43,10 +43,16 @@ def make_mesh(dp: int = 1, sp: int = 1, devices=None) -> Mesh:
     return Mesh(arr, ("dp", "sp"))
 
 
+def _tile_key(key, di, si):
+    """Independent RNG stream for the (row-tile, sample-shard) block."""
+    return jax.random.fold_in(jax.random.fold_in(key, di), si)
+
+
 def _render_tile(scene: st.Scene, key, row0, nx: int, rows: int,
                  ny_total: int, spp_shard: int, max_depth: int, mode: str):
     """Render `rows` image rows starting at absolute row `row0` with
-    spp_shard samples each. Returns the radiance sum (rows, nx, 3)."""
+    spp_shard samples each. Returns (radiance sum (rows, nx, 3), segments);
+    segments are counted in "while" mode only (0 otherwise)."""
     n_pix = rows * nx
     n_rays = n_pix * spp_shard
     pix = jnp.arange(n_pix, dtype=jnp.int32)
@@ -57,107 +63,93 @@ def _render_tile(scene: st.Scene, key, row0, nx: int, rows: int,
     u = (i.astype(jnp.float32) + sampling.uniform(k_u, (n_rays,))) / nx
     v = (j.astype(jnp.float32) + sampling.uniform(k_v, (n_rays,))) / ny_total
     o, d, t = camera_mod.get_rays(k_cam, scene.camera, u, v)
-    rad = trace(k_trace, o, d, t, scene, max_depth=max_depth, mode=mode)
-    return rad.reshape(spp_shard, rows, nx, 3).sum(axis=0)
+    if mode == "while":
+        rad, segs = trace_with_stats(k_trace, o, d, t, scene,
+                                     max_depth=max_depth)
+    else:
+        rad = trace(k_trace, o, d, t, scene, max_depth=max_depth, mode=mode)
+        segs = jnp.zeros((), jnp.float32)
+    return rad.reshape(spp_shard, rows, nx, 3).sum(axis=0), segs
 
 
+def _shard_dims(mesh: Mesh, ny: int, spp: int):
+    dp = mesh.shape["dp"]
+    sp = mesh.shape["sp"]
+    assert ny % dp == 0, f"ny={ny} must divide by dp={dp}"
+    assert spp % sp == 0, f"spp={spp} must divide by sp={sp}"
+    return dp, sp, ny // dp, spp // sp
+
+
+@partial(jax.jit, static_argnames=("mesh", "nx", "ny", "spp", "max_depth",
+                                   "mode", "with_segments"))
 def render_sharded(scene: st.Scene, mesh: Mesh, key, nx: int, ny: int,
-                   spp: int, max_depth: int = 100, mode: str = "while"):
+                   spp: int, max_depth: int = 100, mode: str = "while",
+                   with_segments: bool = False):
     """Render (ny, nx) at `spp` with rows sharded over mesh axis "dp" and
-    samples over "sp". Returns the averaged canvas, sharded over rows.
+    samples over "sp". Returns the averaged canvas, sharded over rows (and,
+    with `with_segments`, the path segments traced on all devices; "while"
+    mode only).
 
     The scene pytree is replicated to every device; each device traces its
     (row-tile x sample-shard) block with an independent folded key; sample
     shards are combined with a single psum over "sp" (the spp-sharded pixel
     accumulation of SURVEY.md §2.3).
     """
-    dp = mesh.shape["dp"]
-    sp = mesh.shape["sp"]
-    assert ny % dp == 0, f"ny={ny} must divide by dp={dp}"
-    assert spp % sp == 0, f"spp={spp} must divide by sp={sp}"
-    rows = ny // dp
-    spp_shard = spp // sp
+    _dp, _sp, rows, spp_shard = _shard_dims(mesh, ny, spp)
 
     @partial(jax.shard_map, mesh=mesh, in_specs=(P(), P()),
-             out_specs=P("dp", None, None), check_vma=False)
+             out_specs=(P("dp", None, None), P()), check_vma=False)
     def run(scene_rep, base_key):
         di = jax.lax.axis_index("dp")
         si = jax.lax.axis_index("sp")
-        k = jax.random.fold_in(jax.random.fold_in(base_key, di), si)
-        tile = _render_tile(scene_rep, k, di * rows, nx, rows, ny,
-                            spp_shard, max_depth, mode)
-        tile = jax.lax.psum(tile, "sp")
-        return tile
+        tile, segs = _render_tile(scene_rep, _tile_key(base_key, di, si),
+                                  di * rows, nx, rows, ny, spp_shard,
+                                  max_depth, mode)
+        return (jax.lax.psum(tile, "sp"),
+                jax.lax.psum(segs, ("dp", "sp")))
 
-    return run(scene, key) / spp
+    canvas, segs = run(scene, key)
+    if with_segments:
+        return canvas / spp, segs
+    return canvas / spp
 
 
-def render_sharded_mega(scene: st.Scene, mesh: Mesh, key, nx: int, ny: int,
-                        spp: int, max_depth: int = 50, T: int | None = None,
-                        SB: int | None = None, chunks: int = 1,
-                        idx_extract: bool = False,
-                        cull: bool | None = None,
-                        extract_block: int | None = None,
-                        interpret: bool | None = None):
-    """The fused Pallas megakernel across a (dp, sp) device mesh: image
-    row-tiles shard over "dp", samples over "sp", one psum over "sp" of
-    (radiance sums, sample counts) combines the shards — the multi-chip
-    form of the flagship single-chip path (ops/megakernel.py).
+def sharded_value_and_grad(scene: st.Scene, mesh: Mesh, target, *,
+                           set_params, nx: int, ny: int, spp: int,
+                           max_depth: int = 8):
+    """Jitted (params, key) -> (loss, grads) of the pixel L2 loss between
+    `target` (ny, nx, 3) and the "scan"-mode render of
+    `set_params(scene, params)` — rows sharded over "dp", samples over "sp".
 
-    Tables and the static launch plan are built once on the host and
-    replicated; each device runs the identical kernel on its own row tile
-    with an independent (dp, sp)-folded RNG stream. Overdraw counts are
-    pooled across sample shards before normalization, so the estimator
-    matches trace_mega's. Returns the averaged (ny, nx, 3) canvas, sharded
-    over rows."""
-    from ..ops import megakernel as mk
+    Each device renders its (row-tile, sample-shard) block under a local
+    VJP; the only collectives are the spp mean of the forward tiles, the
+    loss sum over "dp" and one gradient psum over the whole mesh. The
+    result equals running every block's VJP on one device with the same
+    keys (`_tile_key`) and summing.
+    """
+    _dp, sp, rows, spp_shard = _shard_dims(mesh, ny, spp)
+    n = ny * nx * 3
 
-    dp = mesh.shape["dp"]
-    sp = mesh.shape["sp"]
-    assert ny % dp == 0, f"ny={ny} must divide by dp={dp}"
-    assert spp % sp == 0, f"spp={spp} must divide by sp={sp}"
-    rows = ny // dp
-    spp_shard = spp // sp
-    if interpret is None:
-        interpret = jax.default_backend() in ("cpu", "gpu")
-
-    # Full-image cfg (camera u/v need absolute pixel coords and full ny);
-    # the per-device pixel layout covers one `rows`-tall tile, offset to
-    # absolute rows inside shard_map via the device's "dp" index.
-    tabs, cfg, T, _k = mk.make_plan(scene, nx, ny, spp_shard,
-                                    max_depth=max_depth, T=T, SB=SB,
-                                    chunks=chunks, idx_extract=idx_extract,
-                                    cull=cull, extract_block=extract_block,
-                                    # interpret executes unrolled overshoot
-                                    # iterations for real (see trace_mega)
-                                    unroll=1 if interpret else None)
-    (sph_tab, attr_tab, clus_tab, rect_tab, light_tab, med_tab, img_tab,
-     cam_vec, _meta) = tabs
-    pixf, inv = mk._pixel_layout(nx, rows, T)
-    n_tiles = pixf.shape[0]
-    inv = jnp.asarray(inv)
-
-    @partial(jax.shard_map, mesh=mesh, in_specs=(P(), P()),
-             out_specs=P("dp", None, None), check_vma=False)
-    def run(pixf_rep, base_key):
+    @partial(jax.shard_map, mesh=mesh,
+             in_specs=(P(), P(), P(), P("dp", None, None)),
+             out_specs=(P(), P()), check_vma=False)
+    def step(params, scene_rep, base_key, target_tile):
         di = jax.lax.axis_index("dp")
         si = jax.lax.axis_index("sp")
-        k = jax.random.fold_in(jax.random.fold_in(base_key, di), si)
-        seed = jax.random.randint(k, (1, 1), 0, np.int32(2 ** 31 - 1),
-                                  dtype=jnp.int32)
-        pixf_dev = pixf_rep.at[:, 1, :].add(
-            (di * rows).astype(jnp.float32))
-        out = mk._mega_call(pixf_dev, cam_vec, sph_tab, attr_tab,
-                            clus_tab, rect_tab, light_tab, med_tab,
-                            jnp.asarray(mk._PERM_B),
-                            jnp.asarray(mk._RV_HI),
-                            jnp.asarray(mk._RV_LO), img_tab, seed,
-                            cfg=cfg, n_tiles=n_tiles, interpret=interpret)
-        sums = out[:, 0:3, :].transpose(0, 2, 1).reshape(n_tiles * T, 3)
-        dones = out[:, 5, :].reshape(n_tiles * T)
-        sums = jax.lax.psum(sums, "sp")
-        dones = jax.lax.psum(dones, "sp")
-        scaled = sums * (spp / jnp.maximum(dones, 1.0))[:, None]
-        return scaled[inv].reshape(rows, nx, 3)
 
-    return run(pixf, key) / spp
+        def tile_mean(p):
+            tile, _ = _render_tile(set_params(scene_rep, p),
+                                   _tile_key(base_key, di, si), di * rows,
+                                   nx, rows, ny, spp_shard, max_depth,
+                                   "scan")
+            return tile / spp_shard
+
+        img, vjp = jax.vjp(tile_mean, params)
+        err = jax.lax.pmean(img, "sp") - target_tile
+        (g,) = vjp((2.0 / (n * sp)) * err)
+        loss = jax.lax.psum(jnp.sum(err * err), "dp") / n
+        g = jax.tree.map(lambda x: jax.lax.psum(x, ("dp", "sp")), g)
+        return loss, g
+
+    step = jax.jit(step)
+    return lambda params, key: step(params, scene, key, target)

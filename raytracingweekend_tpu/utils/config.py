@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import dataclasses
 
+LOOP_MODES = ("regen", "tiled", "while", "scan")
+
 
 @dataclasses.dataclass
 class RenderConfig:
@@ -16,17 +18,13 @@ class RenderConfig:
     # Wavefront sizing: samples traced per device launch. Memory per launch
     # scales as nx*ny*samples_per_launch; lower it for huge frames.
     samples_per_launch: int = 8
-    # "regen" = path-regenerative wavefront (fast forward default);
-    # "while" = lockstep early-exit loop; "scan" = fixed-depth,
-    # reverse-differentiable.
+    # One of LOOP_MODES: "regen" = path-regenerative wavefront (forward
+    # default); "tiled" = scatter-free per-pixel slots; "while" = lockstep
+    # early-exit loop; "scan" = fixed-depth, reverse-differentiable.
     loop_mode: str = "regen"
     # Framebuffer checkpoint path (native runtime); rerunning the same config
     # resumes accumulation exactly. None disables checkpointing.
     checkpoint: str | None = None
-    # Megakernel tile width (lanes per Pallas tile). The on-chip sweet spot
-    # is 2048 (tools/mega_perf.py); small values keep the CPU interpreter
-    # tractable for functional verification.
-    tile_lanes: int = 2048
 
     @property
     def aspect(self) -> float:

@@ -5,9 +5,9 @@ The reference's sampling gallery commits a denoised comparison render
 externally-denoised PNG with no code in the tree); this module is the
 framework's own post-filter so the artifact is reproducible in-repo.
 
-TPU-native formulation: each a-trous iteration is 25 shifted adds of the
+Vectorized formulation: each a-trous iteration is 25 shifted adds of the
 whole image (B3-spline 5x5 stencil dilated by 2^i) with per-pixel range
-weights — pure elementwise jnp, jit-compiles to fused VPU code with no
+weights — pure elementwise jnp, jit-compiles to fused elementwise code with no
 gathers. Edge handling is clamp-to-edge via one pad per iteration.
 """
 from __future__ import annotations

@@ -83,7 +83,7 @@ def write_png(canvas01: np.ndarray, path: str) -> None:
     """8-bit RGB PNG. Same canvas convention as write_ppm (row 0 = bottom)."""
     ny, nx, _ = canvas01.shape
     q = _quantize(canvas01)[::-1]  # PNG rows are top-down
-    if _native.available():
+    if _native.has_codecs():
         _native.write_png(path, q)
         return
     raw = b"".join(b"\x00" + q[j].tobytes() for j in range(ny))
@@ -138,7 +138,7 @@ def read_png(path: str) -> np.ndarray:
     """PNG reader (native libpng when built; else a minimal 8-bit
     non-interlaced pure-Python decoder). Returns float (ny, nx, 3) in [0,1],
     row 0 at image bottom."""
-    if _native.available():
+    if _native.has_codecs():
         pix = _native.read_png(path)
         return (pix.astype(np.float64) / 255.0)[::-1].copy()
     with open(path, "rb") as f:
@@ -173,19 +173,36 @@ def read_png(path: str) -> np.ndarray:
     return (pix.astype(np.float64) / 255.0)[::-1].copy()
 
 
+def read_rtwi(path: str) -> np.ndarray:
+    """Raw RGB8 texels as tools/export_texture_raw.py writes them for the
+    reference oracle: b"RTWI <nx> <ny>\n" + nx*ny*3 bytes, row 0 = top."""
+    with open(path, "rb") as f:
+        magic, nx, ny = f.readline().split()
+        if magic != b"RTWI":
+            raise ValueError(f"bad RTWI header in {path!r}")
+        nx, ny = int(nx), int(ny)
+        data = np.frombuffer(f.read(), np.uint8)
+    if data.size != nx * ny * 3:
+        raise ValueError(f"short RTWI payload in {path!r}")
+    return (data.reshape(ny, nx, 3).astype(np.float64) / 255.0)[::-1].copy()
+
+
 def load_image(path: str) -> np.ndarray:
-    """Load PNG, PPM, or JPEG (native libjpeg) as float (ny, nx, 3), row 0 at
-    image bottom — feed to SceneBuilder.image()."""
+    """Load PNG, PPM, RTWI, or JPEG (native libjpeg) as float (ny, nx, 3),
+    row 0 at image bottom — feed to SceneBuilder.image()."""
     low = path.lower()
+    if low.endswith(".rtwi"):
+        return read_rtwi(path)
     if low.endswith(".png"):
         return read_png(path)
     if low.endswith((".ppm",)):
         return read_ppm(path)
     if low.endswith((".jpg", ".jpeg")):
-        if _native.available():
+        if _native.has_codecs():
             pix = _native.read_jpeg(path)
             return (pix.astype(np.float64) / 255.0)[::-1].copy()
         raise ValueError(
-            f"JPEG decoding needs the native runtime: make -C native "
+            f"JPEG decoding needs the native runtime built with libjpeg: "
+            f"make -C native "
             f"(for {path!r})")
     raise ValueError(f"unsupported image format for {path!r}")

@@ -1,7 +1,7 @@
 """Opt-in float64 validation mode.
 
 The reference computes in double (vec3.h:39-43); this framework is
-float32-first because that is the TPU's native word (VERDICT r2 notes the
+float32-first because that is the accelerator's native word (the
 deviation is deliberate and measured — parity is proven at the 2%/4-sigma
 gate against the f64 oracle). For CPU-side validation, though, an f64
 render tightens golden tolerances by ~10x and catches subtle precision

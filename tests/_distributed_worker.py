@@ -38,97 +38,6 @@ def main():
     np.save(os.path.join(outdir, f"canvas_{pid}.npy"), img)
     print(f"worker {pid} wavefront ok", flush=True)
 
-    # ---- FLAGSHIP megakernel across the PROCESS-SPANNING mesh (round-5,
-    # VERDICT r4 #6). Production topology: the Pallas kernel launch is
-    # ALWAYS device-local (on a pod each chip runs its own tile; nothing
-    # inside a kernel crosses ICI/DCN) — the only cross-process traffic
-    # is the canvas reduction/gather, exactly what this exercises over
-    # the real 2-process gloo runtime. Tracing the interpret-mode kernel
-    # INSIDE a cross-process SPMD program instead wedges XLA:CPU for
-    # >25 min at any shape (probed round-5; same family as the
-    # partial-mesh pathology in tools/scaling_report.py) — a virtual-
-    # backend artifact real chips never see, sidestepped rather than
-    # paid, like tools/mosaic_repros sidesteps Mosaic miscompiles. ----
-    import jax.numpy as jnp
-    from jax.sharding import NamedSharding, PartitionSpec as P
-
-    from raytracingweekend_tpu.ops import megakernel as mk
-
-    # (2, 4) mesh: the "dp" axis IS the process axis (4 local devices
-    # per process), so P("dp") shards land process-local and replicating
-    # is a genuine cross-process all-gather.
-    m2 = distributed.global_mesh(dp=2, sp=4)
-    nx_m = ny_m = 16
-    rows = ny_m // nproc
-    tabs, cfg, T_m, _k = mk.make_plan(scene, nx_m, ny_m, 2, max_depth=2,
-                                      T=512, unroll=1)
-    (sph_tab, attr_tab, clus_tab, rect_tab, light_tab, med_tab, img_tab,
-     cam_vec, _meta) = tabs
-    pixf, _inv = mk._pixel_layout(nx_m, rows, T_m)
-    pixf = pixf.at[:, 1, :].add(float(pid * rows))   # absolute row j
-    seed = jax.random.randint(jax.random.fold_in(jax.random.key(1), pid),
-                              (1, 1), 0, np.int32(2 ** 31 - 1),
-                              dtype=jnp.int32)
-    out = mk._mega_call(pixf, cam_vec, sph_tab, attr_tab, clus_tab,
-                        rect_tab, light_tab, med_tab,
-                        jnp.asarray(mk._PERM_B), jnp.asarray(mk._RV_HI),
-                        jnp.asarray(mk._RV_LO), img_tab, seed,
-                        cfg=cfg, n_tiles=pixf.shape[0], interpret=True)
-    sums = out[:, 0:3, :].transpose(0, 2, 1).reshape(-1, 3)
-    dones = out[:, 5, :].reshape(-1)
-    scaled = sums * (2.0 / np.maximum(np.asarray(dones), 1.0))[:, None]
-    tile = (np.asarray(scaled)[_inv].reshape(rows, nx_m, 3)
-            / 2.0)                                   # spp average
-    # cross-process canvas assembly: rows sharded over the process axis,
-    # then ONE all-gather replicates the full frame to every process
-    sh = NamedSharding(m2, P("dp"))
-    gcanvas = jax.make_array_from_process_local_data(
-        sh, tile.astype(np.float32))
-    rep = jax.jit(lambda x: x, out_shardings=NamedSharding(m2, P()))(
-        gcanvas)
-    np.save(os.path.join(outdir, f"mega_{pid}.npy"), np.asarray(rep))
-    print(f"worker {pid} mega ok", flush=True)
-
-    # ---- differentiable flagship across processes: spp-sharded DP
-    # gradients. Each process tapes+replays its OWN sample shard (local
-    # AD, device-local kernel), the shards meet in exactly two compiled
-    # cross-process collectives — the forward radiance all-gather and
-    # the parameter-gradient reduction — the same decomposition the
-    # sharded value_and_grad runs inside shard_map (ops/mega_grad.py:
-    # psum of lanes over "sp" + psum-transpose grad all-reduce). ----
-    from raytracingweekend_tpu.ops import mega_grad as mg
-
-    ctx = mg.plan_tape(scene, nx_m, ny_m, 2, max_depth=2, T=512)
-    _img, tape, tseed = mg.tape_forward(
-        jax.random.fold_in(jax.random.key(2), pid), ctx, interpret=True)
-    replay = mg.make_replay(ctx)
-    colors = scene.textures.color
-
-    def shard_img(c):
-        sc = scene.replace(textures=scene.textures.replace(color=c))
-        return replay(sc, tape, tseed)
-
-    img_p, vjp = jax.vjp(shard_img, colors)
-    # all-gather the per-process sample-shard images (global (2, H, W, 3))
-    gimg = jax.make_array_from_process_local_data(
-        NamedSharding(m2, P("dp")), np.asarray(img_p)[None])
-    both = np.asarray(jax.jit(
-        lambda x: x, out_shardings=NamedSharding(m2, P()))(gimg))
-    img = both.mean(axis=0)                       # 2-shard spp average
-    # local cotangent + local VJP (no collective inside AD), then the
-    # cross-process grad reduction
-    ct = (2.0 / img.size) * (img - 0.0) / nproc   # d mean((img-0)^2)
-    (g_p,) = vjp(jnp.asarray(ct, jnp.float32))
-    gg = jax.make_array_from_process_local_data(
-        NamedSharding(m2, P("dp")), np.asarray(g_p)[None])
-    gboth = np.asarray(jax.jit(
-        lambda x: x, out_shardings=NamedSharding(m2, P()))(gg))
-    g = gboth.sum(axis=0)
-    loss = float((img ** 2).mean())
-    np.save(os.path.join(outdir, f"megagrad_{pid}.npy"),
-            np.asarray([loss, float(np.abs(g).sum())]))
-    print(f"worker {pid} mega-grad ok", flush=True)
-
 
 if __name__ == "__main__":
     main()

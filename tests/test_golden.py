@@ -1,135 +1,65 @@
 """Golden-image tests against the reference renderer.
 
-Goldens in tests/goldens/ are produced by tools/reference_oracle (a portable
-serial driver over the unmodified reference headers — see its Makefile) at
-high spp, float64. Our renderer uses a different (threefry) RNG stream, so
-agreement is statistical: the scene-mean radiance must match within combined
-MC standard error, and per-pixel values within a few noise sigmas.
+Goldens and gates live in utils/goldens.py. Agreement is statistical: the
+scene-mean radiance must match within combined MC standard error, and
+per-pixel values within a few noise sigmas.
 
 The cheap default tests keep CPU time bounded; `RTW_GOLDEN_FULL=1` enables
-the full-resolution pixelwise suite (intended for TPU runs).
+the full-resolution pixelwise suite (hours on CPU; `chip_smoke.py` runs the
+same gates on a GPU).
 """
 import os
-import re
-import struct
 
-import numpy as np
-import jax
 import pytest
 
 from raytracingweekend_tpu.models.scenes import make_scene
 from raytracingweekend_tpu.render import render
+from raytracingweekend_tpu.utils import goldens as G
 from raytracingweekend_tpu.utils.config import RenderConfig
 
-GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 FULL = bool(os.environ.get("RTW_GOLDEN_FULL"))
 
 
-def load_golden(name):
-    path = os.path.join(GOLDEN_DIR, name)
-    with open(path, "rb") as f:
-        header = f.readline().decode()
-        m = re.match(r"RTWO (\d+) (\d+)", header)
-        nx, ny = int(m.group(1)), int(m.group(2))
-        data = np.frombuffer(f.read(), dtype="<f8")
-    return data.reshape(ny, nx, 3)  # row 0 = image bottom
-
-
-GOLDENS = {
-    "dielectric": "dielectric_32x32_4096spp.bin",
-    "light_sample": "light_sample_32x32_4096spp.bin",
-    "cornell_box": "cornell_box_32x32_8192spp.bin",
-    "random_balls": "random_balls_32x32_2048spp.bin",
-    # volume path: reference constant_medium + isotropic via the oracle's
-    # smoke_scene (same book-2 ch.9 constants as models/scenes.py)
-    "cornell_smoke": "cornell_smoke_32x32_8192spp.bin",
-    # image-texture path: the oracle renders through the UNMODIFIED
-    # reference image_texture (texture.h:73-98) fed the exact texel bytes
-    # the framework uses (tools/export_texture_raw.py -> oracle load_rtwi)
-    # — external parity for the one feature that was previously gated only
-    # mega-vs-wavefront (both repo code).
-    "earth": "earth_32x32_4096spp.bin",
-    "earth_rect": "earth_rect_32x32_4096spp.bin",
-}
-
-# Multi-tile goldens (128x128 = four T=4096 megakernel tiles): exercise the
-# tile pixel layout, inv permutation, per-tile RNG streams, and overdraw
-# renormalization pixelwise ON HARDWARE via tools/mega_golden_check.py
-# --multitile (the 32x32 rows above all fit one tile). Kept out of the
-# default CPU suite for cost; spp encoded in the filename.
-GOLDENS_MULTITILE = {
-    "cornell_box": "cornell_box_128x128_8192spp.bin",
-    "random_balls": "random_balls_128x128_2048spp.bin",
-}
-
-
 def _ours(scene_name, nx, ny, spp, max_depth=50):
-    if scene_name.startswith("earth"):
-        from raytracingweekend_tpu.models.scenes import earth_texture_path
-        if earth_texture_path() is None:
-            pytest.skip("earth goldens need the decoded earth.jpg texels "
-                        "(make -C native); procedural fallback would "
-                        "diverge from the oracle's RTWI bytes")
     scene = make_scene(scene_name, nx / ny)
     cfg = RenderConfig(nx=nx, ny=ny, spp=spp, max_depth=max_depth,
                        samples_per_launch=min(spp, 64), seed=7)
     return render(scene, cfg)
 
 
-@pytest.mark.parametrize("scene_name", sorted(GOLDENS))
+@pytest.mark.parametrize("scene_name", sorted(G.GOLDENS))
 def test_golden_mean_radiance(scene_name):
     """Scene-average radiance vs the reference, cheap configuration."""
-    golden = load_golden(GOLDENS[scene_name])
+    golden = G.load_golden(G.GOLDENS[scene_name])
     ours = _ours(scene_name, 16, 16, 48, max_depth=20)
     g, o = float(golden.mean()), float(ours.mean())
     # 16x16x48 samples of a bounded integrand: mean standard error << 3%.
     assert abs(o - g) / max(g, 1e-6) < 0.05, (o, g)
 
 
-@pytest.mark.parametrize("scene_name", sorted(GOLDENS))
+@pytest.mark.parametrize("scene_name", sorted(G.GOLDENS))
 def test_golden_blockwise(scene_name):
     """Coarse pixelwise gate for ALL scenes in the default (CPU) suite:
     8x8 blocks of 4x4-pixel means vs the golden, so a localized shading
     regression (wrong wall color, dead light, flipped normal) fails even if
     it preserves the scene mean. Tolerances calibrated at ~2x the worst
     observed MC noise at this sample count (see git history)."""
-    golden = load_golden(GOLDENS[scene_name])
-    ours = np.asarray(_ours(scene_name, 32, 32, 96, max_depth=50),
-                      np.float64)
-
-    def blk(a):
-        return a.reshape(8, 4, 8, 4, 3).mean(axis=(1, 3))
-
-    gb, ob = blk(np.asarray(golden)), blk(ours)
-    err = np.abs(ob - gb)
-    tol = 0.03 + 4.0 * np.sqrt(np.maximum(gb, 0.0) / (16 * 96))
-    assert (err <= tol).all(), (
-        f"{(err > tol).sum()} blocks out of tolerance; "
-        f"worst ratio {(err / tol).max():.2f}")
+    golden = G.load_golden(G.GOLDENS[scene_name])
+    ours = _ours(scene_name, 32, 32, 96, max_depth=50)
+    res = G.blockwise(golden, ours, 96)
+    assert res["passed"], (
+        f"{res['n_bad']} blocks out of tolerance; "
+        f"worst ratio {res['worst_ratio']:.2f}")
 
 
-# Full-resolution pixelwise suite (intended for TPU runs; hours on CPU).
-# Defined only under RTW_GOLDEN_FULL=1 so the default suite reports no
-# skips; tools/golden_report.py runs it and records the parity artifact.
+# Full-resolution pixelwise suite (hours on CPU). Defined only under
+# RTW_GOLDEN_FULL=1 so the default suite reports no skips.
 if FULL:
-    @pytest.mark.parametrize("scene_name", sorted(GOLDENS))
+    @pytest.mark.parametrize("scene_name", sorted(G.GOLDENS))
     def test_golden_pixelwise(scene_name):
         """Per-pixel agreement at the goldens' own resolution and spp."""
-        golden = load_golden(GOLDENS[scene_name])
+        golden = G.load_golden(G.GOLDENS[scene_name])
         ny, nx, _ = golden.shape
-        spp = {"dielectric": 4096, "light_sample": 4096,
-               "cornell_box": 8192, "random_balls": 2048,
-               "cornell_smoke": 8192, "earth": 4096,
-               "earth_rect": 4096}[scene_name]
-        ours = _ours(scene_name, nx, ny, spp)
-        g = np.asarray(golden)
-        o = np.asarray(ours, np.float64)
-        # Mean radiance: tight.
-        assert abs(o.mean() - g.mean()) / max(g.mean(), 1e-6) < 0.02
-        # Pixelwise: within MC noise. Tolerance scales like 1/sqrt(spp) plus
-        # an absolute floor for near-black pixels; the 99.5th percentile
-        # guards against fireflies in high-variance scenes (glass caustics).
-        err = np.abs(o - g)
-        tol = 0.05 + 4.0 * np.sqrt(np.maximum(g, 0.0) / spp)
-        frac_ok = (err <= tol).mean()
-        assert frac_ok > 0.995, frac_ok
+        spp = G.golden_spp(G.GOLDENS[scene_name])
+        res = G.full_parity(golden, _ours(scene_name, nx, ny, spp), spp)
+        assert res["passed"], res

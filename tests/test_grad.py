@@ -183,38 +183,6 @@ def test_grad_dielectric_ior_matches_fd():
     assert abs(float(g)) > 1e-4  # refraction genuinely depends on IOR
 
 
-def test_pallas_intersect_grad_matches_xla(monkeypatch):
-    # Regression for the TPU-backend landmine: hit_spheres dispatches to the
-    # Pallas kernel there, which has no autodiff rule of its own — the
-    # custom-VJP argmin-replay backward must reproduce the XLA path's
-    # gradients. Forced through interpret mode so CPU CI covers it.
-    from raytracingweekend_tpu.ops import geometry
-
-    scene = _simple_scene()
-    sph = scene.spheres
-    o = jnp.zeros((64, 3))
-    d = jax.random.normal(jax.random.key(1), (64, 3))
-    d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
-    time = jnp.zeros((64,))
-
-    def f(radius):
-        s2 = sph.replace(radius=radius)
-        bt, _ = geometry.hit_spheres(o, d, time, 0.001, s2, False)
-        return jnp.sum(jnp.where(bt < geometry.BIG, bt, 0.0))
-
-    monkeypatch.setenv("RTW_FORCE_PALLAS_INTERPRET", "1")
-    bt_p, bi_p = geometry.hit_spheres(o, d, time, 0.001, sph, False)
-    g_pallas = jax.grad(f)(sph.radius)
-    monkeypatch.delenv("RTW_FORCE_PALLAS_INTERPRET")
-
-    bt_x, bi_x = geometry.hit_spheres(o, d, time, 0.001, sph, False)
-    g_xla = jax.grad(f)(sph.radius)
-    np.testing.assert_allclose(np.asarray(bt_p), np.asarray(bt_x), rtol=1e-6)
-    np.testing.assert_array_equal(np.asarray(bi_p), np.asarray(bi_x))
-    np.testing.assert_allclose(np.asarray(g_pallas), np.asarray(g_xla),
-                               rtol=1e-4, atol=1e-6)
-
-
 def test_inverse_rendering_recovers_albedo():
     true_albedo = (0.2, 0.6, 0.4)
     target_scene = _simple_scene(true_albedo)

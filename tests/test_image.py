@@ -91,3 +91,42 @@ def test_quantization_matches_reference_25599():
     c = np.array([[[1.0, 0.5, 0.0]]])
     q = im._quantize(c)
     assert q[0, 0].tolist() == [255, 127, 0]
+
+
+def test_rtwi_roundtrip(tmp_path):
+    """RTWI raw texels (tools/export_texture_raw.py format): row 0 = top
+    on disk, bottom in memory, exact byte values."""
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 256, (3, 5, 3), dtype=np.uint8)   # top row first
+    path = tmp_path / "t.rtwi"
+    path.write_bytes(b"RTWI 5 3\n" + data.tobytes())
+    got = im.load_image(str(path))
+    assert got.shape == (3, 5, 3)
+    np.testing.assert_array_equal(np.rint(got * 255.0)[::-1], data)
+
+
+def test_rtwi_rejects_bad_files(tmp_path):
+    import pytest
+
+    bad = tmp_path / "bad.rtwi"
+    bad.write_bytes(b"RTWX 2 2\n" + bytes(12))
+    with pytest.raises(ValueError):
+        im.load_image(str(bad))
+    short = tmp_path / "short.rtwi"
+    short.write_bytes(b"RTWI 2 2\n" + bytes(5))
+    with pytest.raises(ValueError):
+        im.load_image(str(short))
+
+
+def test_earth_scenes_use_the_oracle_texels():
+    """The earth goldens were rendered from tools/reference_oracle/
+    earth.rtwi; the earth scenes load the same bytes."""
+    from raytracingweekend_tpu.models.scenes import (earth_texture_path,
+                                                     make_scene)
+
+    path = earth_texture_path()
+    assert path.endswith("earth.rtwi")
+    tex = np.asarray(make_scene("earth", 1.0).textures.images[0])
+    ref = im.load_image(path)[::-1]        # the atlas stores rows top-down
+    np.testing.assert_allclose(tex[:ref.shape[0], :ref.shape[1]], ref,
+                               atol=1e-6)

@@ -212,3 +212,34 @@ def test_regenerative_matches_lockstep_statistically():
     err = np.abs(img_regen - img_lock)
     tol = 0.05 + 4.0 * np.sqrt(np.maximum(img_lock, 0.0) / spp)
     assert (err <= tol).mean() > 0.99
+
+
+def test_loop_modes_are_the_supported_four():
+    import pytest
+
+    from raytracingweekend_tpu import render as render_mod
+    from raytracingweekend_tpu.utils.config import LOOP_MODES
+
+    assert LOOP_MODES == ("regen", "tiled", "while", "scan")
+    assert RenderConfig().loop_mode == "regen"
+    with pytest.raises(ValueError, match="loop_mode"):
+        render(make_scene("dielectric", 1.0),
+               RenderConfig(nx=4, ny=4, spp=1, loop_mode="mega"))
+    for removed in (["--mode", "auto"], ["--mode", "mega"],
+                    ["--tile-lanes", "512"]):
+        with pytest.raises(SystemExit):
+            render_mod.main(removed)
+
+
+def test_tiled_tile_is_capped_at_the_image():
+    """A frame smaller than n_slots pixels runs as one tile of the image's
+    size (rounded up to 256), not a wavefront of n_slots mostly-padding
+    slots."""
+    from raytracingweekend_tpu.ops.integrator import trace_tiled
+
+    scene = make_scene("dielectric", 1.0)
+    img, segs = trace_tiled(jax.random.key(0), scene, 8, 8, 4, max_depth=4)
+    assert img.shape == (8, 8, 3)
+    # every one of the 8*8*4 paths traced at least its camera segment,
+    # and no padded slot was counted
+    assert 8 * 8 * 4 <= float(segs) <= 8 * 8 * 4 * 4

@@ -1,5 +1,5 @@
 """Multi-device sharding tests on the virtual 8-device CPU mesh
-(the TPU-native replacement for the reference's PPL parallel_for,
+(the device-mesh replacement for the reference's PPL parallel_for,
 RayTracingWeekend.cpp:186-193; SURVEY.md §2.3)."""
 import numpy as np
 import jax
@@ -58,42 +58,6 @@ def test_sharded_determinism():
     b = np.asarray(render_sharded(scene, mesh, jax.random.key(2), 16, 16, 8,
                                   max_depth=6))
     np.testing.assert_array_equal(a, b)
-
-
-def test_sharded_mega_matches_wavefront_statistically():
-    """The megakernel inside shard_map: row-tiles over dp, spp over sp,
-    pooled-overdraw psum — must agree with the sharded wavefront."""
-    from raytracingweekend_tpu.parallel.mesh import render_sharded_mega
-
-    scene = make_scene("dielectric", 1.0)
-    nx = ny = 16
-    spp = 32
-    mesh = make_mesh(dp=4, sp=2)
-    a = np.asarray(render_sharded_mega(scene, mesh, jax.random.key(5),
-                                       nx, ny, spp, max_depth=8, T=128))
-    b = np.asarray(render_sharded(scene, mesh, jax.random.key(5),
-                                  nx, ny, spp, max_depth=8))
-    assert a.shape == b.shape == (ny, nx, 3)
-    assert np.isfinite(a).all()
-    assert abs(a.mean() - b.mean()) < 0.03
-    # row-tile alignment: per-dp-tile means must match too (catches any
-    # row-offset bug in the per-device pixel layout)
-    am = a.reshape(4, 4, nx, 3).mean(axis=(1, 2, 3))
-    bm = b.reshape(4, 4, nx, 3).mean(axis=(1, 2, 3))
-    np.testing.assert_allclose(am, bm, atol=0.06)
-
-
-def test_sharded_mega_deterministic_and_row_sharded():
-    from raytracingweekend_tpu.parallel.mesh import render_sharded_mega
-
-    scene = make_scene("dielectric", 1.0)
-    mesh = make_mesh(dp=8, sp=1)
-    a = render_sharded_mega(scene, mesh, jax.random.key(6), 16, 16, 8,
-                            max_depth=6, T=128)
-    b = render_sharded_mega(scene, mesh, jax.random.key(6), 16, 16, 8,
-                            max_depth=6, T=128)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert len({s.device for s in a.addressable_shards}) == 8
 
 
 def test_render_distributed_virtual_mesh():

@@ -30,7 +30,7 @@ def main():
     ap.add_argument("--mode", default="regen")
     ap.add_argument("--platform", default="cpu",
                     help="jax platform (default cpu: doc renders should "
-                         "not contend for the shared TPU; pass 'default' "
+                         "not contend with chip jobs; pass 'default' "
                          "to keep the ambient backend)")
     args = ap.parse_args()
 
